@@ -2,19 +2,19 @@
 """End-to-end correction throughput on the current backend.
 
 Simulates a CLR-like read set, runs the full correction pipeline
-(native overlapper -> windows -> TPU consensus -> DBG -> stitch ->
+(native overlapper -> windows -> device consensus -> DBG -> stitch ->
 trim), and reports reads/s, windows/s, and per-stage time."""
 
 import sys, time
-from consent_tpu.utils.jaxcache import enable
+from consent_jax.utils.jaxcache import enable
 enable()
 
 import numpy as np
-from consent_tpu.config import correct_preset
-from consent_tpu.io.fasta import ReadIndex
-from consent_tpu.pipeline import engine
-from consent_tpu.testing import metrics, simulate
-from consent_tpu.overlap import minimizer as mz
+from consent_jax.config import correct_preset
+from consent_jax.io.fasta import ReadIndex
+from consent_jax.pipeline import engine
+from consent_jax.testing import metrics, simulate
+from consent_jax.overlap import minimizer as mz
 
 def main(genome_len=60000, coverage=12.0, read_len=3000):
     t0 = time.perf_counter()
@@ -55,13 +55,13 @@ def main(genome_len=60000, coverage=12.0, read_len=3000):
         r = by_name[name]
         truth = genome[r.g_beg:r.g_end]
         if r.reverse:
-            from consent_tpu.io import seqs as s_
+            from consent_jax.io import seqs as s_
             truth = s_.revcomp(truth)
         ids.append(metrics.identity(codes, truth))
     print(f"pipeline: {t_pipe:.1f}s | {len(piles)/t_pipe:.1f} reads/s | "
           f"~{n_windows/t_pipe:.0f} windows/s | {n_out}/{len(piles)} kept | "
           f"mean identity {np.mean(ids):.4f}", file=sys.stderr)
-    from consent_tpu.utils.observe import GLOBAL_STATS
+    from consent_jax.utils.observe import GLOBAL_STATS
     GLOBAL_STATS.report()
 
 if __name__ == "__main__":

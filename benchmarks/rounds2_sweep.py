@@ -22,13 +22,13 @@ BASELINE_WINDOWS_PER_S = 620.0
 
 
 def main():
-    from consent_tpu.utils.jaxcache import enable
+    from consent_jax.utils.jaxcache import enable
     enable()
     import jax
     import jax.numpy as jnp
 
-    from consent_tpu.ops import consensus as cons_ops
-    from consent_tpu.ops.align import Scoring
+    from consent_jax.ops import consensus as cons_ops
+    from consent_jax.ops.align import Scoring
 
     S, W = 16, 512
     scoring = Scoring(max_hgap=16, band=128)

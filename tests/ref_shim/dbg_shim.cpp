@@ -3,7 +3,7 @@
 // extendLeft/extendRight), compiled in place from /root/reference/src
 // with tests/ref_shim/bmean_utils_stub.h standing in for the missing
 // BMEAN submodule's utils.h.  Used by tests/test_reference_diff.py to
-// fuzz-diff consent_tpu.core.dbg.polish_correction (and the native
+// fuzz-diff consent_jax.core.dbg.polish_correction (and the native
 // fast path) byte-for-byte against the compiled reference.
 #include <cstdint>
 #include <cstring>
@@ -16,7 +16,7 @@ extern "C" {
 
 // read: mixed-case ACGT/acgt string (case = solidity channel).
 // keys/cnts: the window's k-mer counts (keys in the A=0 C=1 G=2 T=3
-// 2-bit encoding shared with consent_tpu's dense tables).
+// 2-bit encoding shared with consent_jax's dense tables).
 // Returns the polished string's length, or -1 if out_cap is too small.
 int64_t ref_polish_correction(const char* read, int64_t read_len,
                               const uint64_t* keys, const uint32_t* cnts,

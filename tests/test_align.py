@@ -3,9 +3,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from consent_tpu.core import npalign
-from consent_tpu.io import seqs
-from consent_tpu.ops import align as align_ops
+from consent_jax.core import npalign
+from consent_jax.io import seqs
+from consent_jax.ops import align as align_ops
 
 
 def pad_to(x, L):

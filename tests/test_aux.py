@@ -7,10 +7,10 @@ import json
 import numpy as np
 import pytest
 
-from consent_tpu.io.paf import OVERLAP_DTYPE, Pile
-from consent_tpu.parallel import multihost
-from consent_tpu.pipeline.checkpoint import ChunkStore
-from consent_tpu.utils.observe import StageStats
+from consent_jax.io.paf import OVERLAP_DTYPE, Pile
+from consent_jax.parallel import multihost
+from consent_jax.pipeline.checkpoint import ChunkStore
+from consent_jax.utils.observe import StageStats
 
 
 def make_piles(n):
@@ -35,7 +35,7 @@ def test_stage_stats():
     buf = io.StringIO()
     st.report(file=buf)
     out = json.loads(buf.getvalue())
-    assert "consent_tpu_stats" in out
+    assert "consent_jax_stats" in out
 
 
 def test_shard_piles_partition():
@@ -87,3 +87,68 @@ def test_chunk_store_gap_stops_assembly(tmp_path):
     store.write_chunk(2, [("c", "CC")])  # gap at 1
     assert store.n_complete_prefix() == 1
     assert store.assemble(out) == 1
+
+
+def test_init_distributed_without_cluster_env(monkeypatch):
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    assert multihost.init_distributed() == (0, 1)
+
+
+def test_init_distributed_raises_on_failure(monkeypatch):
+    """A cluster that cannot be joined is an error, not a silent
+    single-host run."""
+    import jax
+
+    calls = []
+
+    def fail(**kw):
+        calls.append(kw)
+        raise RuntimeError("coordinator unreachable")
+
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    monkeypatch.setenv("JAX_PROCESS_ID", "1")
+    monkeypatch.setattr(jax.distributed, "is_initialized", lambda: False)
+    monkeypatch.setattr(jax.distributed, "initialize", fail)
+    with pytest.raises(RuntimeError, match="unreachable"):
+        multihost.init_distributed()
+    assert calls == [{"coordinator_address": "localhost:1",
+                      "num_processes": 2, "process_id": 1}]
+
+
+_CACHE_PROBE = """
+import os, jax, jax.numpy as jnp
+from consent_jax.utils import jaxcache
+jaxcache.enable()
+print(jax.config.jax_compilation_cache_dir)
+jax.jit(lambda x: x * 3 + 1)(jnp.arange(7)).block_until_ready()
+"""
+
+
+def _cache_probe(env):
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", **env}
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", _CACHE_PROBE], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         check=True)
+    return out.stdout.strip().splitlines()[-1]
+
+
+def test_compile_cache_honours_env_dir(tmp_path):
+    cache = tmp_path / "jaxcache"
+    cache.mkdir()
+    assert _cache_probe({"JAX_COMPILATION_CACHE_DIR": str(cache)}) == str(cache)
+    assert any(cache.iterdir()), "nothing cached in JAX_COMPILATION_CACHE_DIR"
+
+
+def test_compile_cache_default_is_checkout_dir(monkeypatch):
+    from consent_jax.utils import jaxcache
+
+    env = {"JAX_COMPILATION_CACHE_DIR": ""}
+    assert _cache_probe(env) == jaxcache.DEFAULT_DIR
+    assert jaxcache.DEFAULT_DIR.endswith(".jax_cache")

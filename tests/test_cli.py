@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from consent_tpu import cli
-from consent_tpu.io import seqs
-from consent_tpu.io.fasta import iter_fastx
-from consent_tpu.testing import metrics, simulate
+from consent_jax import cli
+from consent_jax.io import seqs
+from consent_jax.io.fasta import iter_fastx
+from consent_jax.testing import metrics, simulate
 
 
 @pytest.fixture(scope="module")
@@ -169,7 +169,7 @@ def test_cli_multihost_resume_stats(small_dataset, tmp_path, capsys):
 
 
 def test_cli_resume_config_mismatch_aborts(small_dataset, tmp_path):
-    from consent_tpu.pipeline.checkpoint import ResumeMismatch
+    from consent_jax.pipeline.checkpoint import ResumeMismatch
 
     tmp, genome, reads, draft, reads_fa, asm_fa = small_dataset
     out = tmp_path / "guard.fasta"
@@ -190,7 +190,7 @@ def test_cli_version_flag(capsys):
     with pytest.raises(SystemExit) as e:
         cli.main_correct(["--version"])
     assert e.value.code == 0
-    assert "consent-tpu" in capsys.readouterr().out
+    assert "consent-jax" in capsys.readouterr().out
 
 
 def test_cli_chunk_quarantine_and_repair(small_dataset, tmp_path,
@@ -200,7 +200,7 @@ def test_cli_chunk_quarantine_and_repair(small_dataset, tmp_path,
     rerun retries exactly the quarantined chunk and restores the
     byte-identical full output (SURVEY §5 shard-level retry)."""
     tmp, genome, reads, draft, reads_fa, asm_fa = small_dataset
-    from consent_tpu.pipeline import engine as engine_mod
+    from consent_jax.pipeline import engine as engine_mod
 
     flags = [
         "--in", str(reads_fa), "--windowSize", "200",
@@ -264,9 +264,9 @@ def _fake_minimap2(tmp_path, canned_paf):
 
 def test_minimap2_contract_correct(small_dataset, tmp_path, monkeypatch):
     tmp, genome, reads, draft, reads_fa, asm_fa = small_dataset
-    from consent_tpu.io import paf as paf_mod
-    from consent_tpu.io.fasta import ReadIndex
-    from consent_tpu.overlap import minimizer as mz
+    from consent_jax.io import paf as paf_mod
+    from consent_jax.io.fasta import ReadIndex
+    from consent_jax.overlap import minimizer as mz
 
     index = ReadIndex.from_file(str(reads_fa))
     named = [(n, index[n]) for n in index.names()]
@@ -328,9 +328,9 @@ def test_minimap2_contract_correct(small_dataset, tmp_path, monkeypatch):
 
 def test_minimap2_contract_polish(small_dataset, tmp_path, monkeypatch):
     tmp, genome, reads, draft, reads_fa, asm_fa = small_dataset
-    from consent_tpu.io import paf as paf_mod
-    from consent_tpu.io.fasta import ReadIndex
-    from consent_tpu.overlap import minimizer as mz
+    from consent_jax.io import paf as paf_mod
+    from consent_jax.io.fasta import ReadIndex
+    from consent_jax.overlap import minimizer as mz
 
     contigs = ReadIndex.from_file(str(asm_fa))
     rd = ReadIndex.from_file(str(reads_fa))

@@ -4,9 +4,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from consent_tpu.io import seqs
-from consent_tpu.ops import consensus as cons_ops
-from consent_tpu.ops import kmer as kmer_ops
+from consent_jax.io import seqs
+from consent_jax.ops import consensus as cons_ops
+from consent_jax.ops import kmer as kmer_ops
 
 
 def make_batch(windows, S, Lf, W):
@@ -154,8 +154,8 @@ def test_wire_format_roundtrip_matches_unpacked():
     with the plain consensus_votes path bit for bit."""
     import jax
 
-    from consent_tpu.ops import consensus as cons_ops
-    from consent_tpu.ops.align import Scoring
+    from consent_jax.ops import consensus as cons_ops
+    from consent_jax.ops.align import Scoring
 
     rng = np.random.default_rng(3)
     B, S, Lf, W = 4, 8, 128, 128
@@ -203,8 +203,8 @@ def test_assemble_template_device_matches_host(seed):
     """Device-side template assembly (the fused-rounds building block)
     must be BIT-equal to the host assemble + truncate-to-Lt chain it
     replaces (engine.py's former between-rounds host round trip)."""
-    from consent_tpu.ops import consensus as cons_ops
-    from consent_tpu.ops.align import Scoring
+    from consent_jax.ops import consensus as cons_ops
+    from consent_jax.ops.align import Scoring
 
     frags, frag_len, tpl, tpl_len, d0 = _random_vote_inputs(seed)
     B, W = tpl.shape
@@ -234,8 +234,8 @@ def test_fused_rounds_match_sequential_host_loop(rounds):
     """consensus_votes_rounds (all rounds in one device computation)
     must reproduce the former engine loop exactly: votes -> host
     assemble -> truncate to Lt -> redispatch as the next template."""
-    from consent_tpu.ops import consensus as cons_ops
-    from consent_tpu.ops.align import Scoring
+    from consent_jax.ops import consensus as cons_ops
+    from consent_jax.ops.align import Scoring
 
     frags, frag_len, tpl, tpl_len, d0 = _random_vote_inputs(7 + rounds)
     B, W = tpl.shape
@@ -300,7 +300,7 @@ def test_run_conservation_restores_homopolymer_indels():
     tp[0, : len(tpl)] = tpl[:W]
     tlen = np.array([min(len(tpl), W)], np.int32)
 
-    from consent_tpu.ops import consensus as cons_ops
+    from consent_jax.ops import consensus as cons_ops
 
     votes = cons_ops.consensus_votes(
         jnp.asarray(frags), jnp.asarray(flen), jnp.asarray(tp),
@@ -319,8 +319,8 @@ def test_wire_assemble_out_matches_host_assembly(rounds):
     """The production assemble_out wire (device-assembled, 2-bit
     packed consensus download) must equal host-assembling the votes
     wire and truncating to Lt."""
-    from consent_tpu.ops import consensus as cons_ops
-    from consent_tpu.ops.align import Scoring
+    from consent_jax.ops import consensus as cons_ops
+    from consent_jax.ops.align import Scoring
 
     frags, frag_len, tpl, tpl_len, d0 = _random_vote_inputs(31 + rounds)
     B, W = tpl.shape

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from consent_tpu.core import dbg
-from consent_tpu.io import seqs
+from consent_jax.core import dbg
+from consent_jax.io import seqs
 
 
 def counts_from(strings, k, weight=10):

@@ -5,12 +5,12 @@ the framework's equivalent of the reference's golden example run
 import numpy as np
 import pytest
 
-from consent_tpu.config import correct_preset
-from consent_tpu.io import seqs
-from consent_tpu.io.fasta import ReadIndex
-from consent_tpu.pipeline import engine
-from consent_tpu.pipeline.stitch import host_batch_align
-from consent_tpu.testing import metrics, simulate
+from consent_jax.config import correct_preset
+from consent_jax.io import seqs
+from consent_jax.io.fasta import ReadIndex
+from consent_jax.pipeline import engine
+from consent_jax.pipeline.stitch import host_batch_align
+from consent_jax.testing import metrics, simulate
 
 
 @pytest.fixture(scope="module")

@@ -1,39 +1,29 @@
-"""End-to-end regression gates on the REAL TPU chip (VERDICT r4 #7).
+"""End-to-end regression gate on a GPU.
 
-The committed BENCH_E2E numbers had no in-suite guard: a regression of
-the native-overlapper end-to-end identity or of device throughput
-would only surface when a judge re-ran the benchmark.  This test runs
-a small-scale (400-read) native-overlapper end-to-end — the exact
+A small-scale (400-read) native-overlapper end-to-end run — the exact
 production composition: minimizer overlap piles -> device consensus
-(fused warm rounds) -> native host post -> interleaved stitch — and
-gates corrected identity and a device-throughput floor.
+(fused warm rounds) -> native host post -> interleaved stitch — gated
+on corrected identity.
 
-Run with:  CONSENT_TPU_TESTS=1 python -m pytest tests/test_e2e_regression.py
-(conftest.py then keeps the real backend instead of forcing CPU; the
-jax persistent compile cache makes warm runs ~1 min).
+Run on the card with:
+    CONSENT_TESTS_ON_DEVICE=1 python -m pytest -m gpu tests/
+(conftest.py then keeps the real backend instead of forcing the CPU).
 """
-
-import time
 
 import numpy as np
 import pytest
 
-import jax
-
-pytestmark = pytest.mark.skipif(
-    jax.default_backend() != "tpu",
-    reason="needs the real TPU backend (CONSENT_TPU_TESTS=1)",
-)
+pytestmark = pytest.mark.gpu
 
 
-def test_native_overlap_e2e_identity_and_throughput():
-    from consent_tpu.config import correct_preset
-    from consent_tpu.io import seqs
-    from consent_tpu.io.fasta import ReadIndex
-    from consent_tpu.overlap import minimizer as mz
-    from consent_tpu.pipeline import engine
-    from consent_tpu.testing import metrics, simulate
-    from consent_tpu.utils.jaxcache import enable as enable_cache
+def test_native_overlap_e2e_identity():
+    from consent_jax.config import correct_preset
+    from consent_jax.io import seqs
+    from consent_jax.io.fasta import ReadIndex
+    from consent_jax.overlap import minimizer as mz
+    from consent_jax.pipeline import engine
+    from consent_jax.testing import metrics, simulate
+    from consent_jax.utils.jaxcache import enable as enable_cache
 
     enable_cache()
     genome, reads = simulate.simulate(
@@ -50,13 +40,7 @@ def test_native_overlap_e2e_identity_and_throughput():
         mz.all_vs_all_piles(named, mz.OverlapParams(), cfg.max_support)
     )
 
-    # warm pass (compiles excluded from the throughput floor)
-    for _ in engine.process_piles(iter(piles[:64]), index, cfg):
-        pass
-
-    t0 = time.perf_counter()
     results = list(engine.process_piles(iter(piles), index, cfg))
-    wall = time.perf_counter() - t0
 
     by = {r.name: r for r in reads}
     ids = []
@@ -70,14 +54,7 @@ def test_native_overlap_e2e_identity_and_throughput():
             t = seqs.revcomp(t)
         ids.append(metrics.identity(codes, t))
     ident = float(np.mean(ids))
-    # committed BENCH_E2E: corrected_identity 0.9865 at full scale;
-    # this 400-read slice measures slightly above it.  Gate 1 pp under
-    # the committed value: a real regression fails, noise does not.
+    # 1 pp under the corrected identity measured at full scale
+    # (0.9865): a real regression fails, noise does not
     assert ident >= 0.977, f"e2e corrected identity regressed: {ident:.4f}"
     assert len(ids) >= 0.95 * len(reads)
-
-    # device-throughput floor: the full pipeline (incl. host stages)
-    # on this host corrects >= 400 reads in well under 2 wall minutes
-    # warm (measured ~25-40 s); 3x headroom for slow hosts
-    reads_per_s = len(results) / wall
-    assert reads_per_s >= 3.0, f"pipeline throughput floor: {reads_per_s:.1f} reads/s"

@@ -4,7 +4,7 @@ import textwrap
 import numpy as np
 import pytest
 
-from consent_tpu.io import fasta, paf, seqs
+from consent_jax.io import fasta, paf, seqs
 
 
 def test_iter_fasta_multiline(tmp_path):

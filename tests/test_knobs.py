@@ -7,13 +7,13 @@ import dataclasses
 import numpy as np
 import pytest
 
-from consent_tpu import native
-from consent_tpu.config import ConsentConfig, correct_preset
-from consent_tpu.core import dbg as dbg_mod
-from consent_tpu.io.fasta import ReadIndex
-from consent_tpu.ops import kmer as kmer_ops
-from consent_tpu.pipeline import engine as eng_mod
-from consent_tpu.testing import simulate
+from consent_jax import native
+from consent_jax.config import ConsentConfig, correct_preset
+from consent_jax.core import dbg as dbg_mod
+from consent_jax.io.fasta import ReadIndex
+from consent_jax.ops import kmer as kmer_ops
+from consent_jax.pipeline import engine as eng_mod
+from consent_jax.testing import simulate
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +121,7 @@ def _decoy_scenario(k=5):
     """A weak gap whose repair needs branch exploration: a decoy branch
     with a higher count dead-ends inside the weak region, so `link`
     must backtrack (costing branch budget) to find the true path."""
-    from consent_tpu.io import seqs
+    from consent_jax.io import seqs
 
     true = "TGGTGTTAACCTTACTATACTCCCGCTCCGGGGT"
     decoy = true[8:14] + "GAGGA"  # diverges inside the weak region
@@ -211,7 +211,7 @@ def test_engine_frag_axis_matches_single_device():
     byte-identical to the single-device engine — and it must be the
     path the polish preset auto-selects when fragment demand exceeds
     device_lanes."""
-    from consent_tpu.config import polish_preset
+    from consent_jax.config import polish_preset
 
     outs = {}
     for nd, nf in ((1, 1), (8, 4), (8, None)):
@@ -234,7 +234,7 @@ def test_engine_fused_rounds_device_identity():
     """consensus_rounds=2 runs fused in ONE dispatch (device-side
     between-round assembly); output must be byte-identical on 1 vs 8
     devices AND on the (data, frag) deep-pile mesh."""
-    from consent_tpu.config import polish_preset
+    from consent_jax.config import polish_preset
 
     outs = {}
     cases = (

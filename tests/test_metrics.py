@@ -1,7 +1,7 @@
 import numpy as np
 
-from consent_tpu.io import seqs
-from consent_tpu.testing import metrics
+from consent_jax.io import seqs
+from consent_jax.testing import metrics
 
 
 def brute_edit(a, b):

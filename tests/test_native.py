@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from consent_tpu import native
-from consent_tpu.core import dbg
-from consent_tpu.io import seqs
-from consent_tpu.ops import kmer as kmer_ops
+from consent_jax import native
+from consent_jax.core import dbg
+from consent_jax.io import seqs
+from consent_jax.ops import kmer as kmer_ops
 
 
 pytestmark = pytest.mark.skipif(
@@ -74,8 +74,8 @@ def test_polish_native_head_tail():
 
 
 def test_assemble_windows_native_matches_python():
-    from consent_tpu import native
-    from consent_tpu.ops import consensus as cons_ops
+    from consent_jax import native
+    from consent_jax.ops import consensus as cons_ops
 
     if native.get_lib() is None:
         import pytest
@@ -112,10 +112,10 @@ def test_host_post_window_native_matches_python(seed=5):
     """The consolidated native post chain must reproduce the Python
     stage composition (counts -> anchor gate -> solidity -> polish)
     byte for byte."""
-    from consent_tpu import native
-    from consent_tpu.core import dbg as dbg_mod
-    from consent_tpu.core.sparse_counts import SparseCounts
-    from consent_tpu.ops import kmer as kmer_ops
+    from consent_jax import native
+    from consent_jax.core import dbg as dbg_mod
+    from consent_jax.core.sparse_counts import SparseCounts
+    from consent_jax.ops import kmer as kmer_ops
 
     if native.get_lib() is None:
         import pytest

@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from consent_tpu.io import seqs
-from consent_tpu.overlap import minimizer as mz
-from consent_tpu.testing import simulate
+from consent_jax.io import seqs
+from consent_jax.overlap import minimizer as mz
+from consent_jax.testing import simulate
 
 
 def test_minimizers_deterministic_and_within_range():

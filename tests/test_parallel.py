@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from consent_tpu.ops import consensus as cons_ops
-from consent_tpu.parallel import mesh as mesh_mod
+from consent_jax.ops import consensus as cons_ops
+from consent_jax.parallel import mesh as mesh_mod
 
 
 def _inputs(B, S, Lf, W, seed=0):

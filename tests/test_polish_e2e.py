@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from consent_tpu.config import polish_preset
-from consent_tpu.io import seqs
-from consent_tpu.io.fasta import ReadIndex
-from consent_tpu.overlap import minimizer as mz
-from consent_tpu.pipeline import engine
-from consent_tpu.pipeline.stitch import host_batch_align
-from consent_tpu.testing import metrics, simulate
+from consent_jax.config import polish_preset
+from consent_jax.io import seqs
+from consent_jax.io.fasta import ReadIndex
+from consent_jax.overlap import minimizer as mz
+from consent_jax.pipeline import engine
+from consent_jax.pipeline.stitch import host_batch_align
+from consent_jax.testing import metrics, simulate
 
 
 def test_polishing_improves_assembly():

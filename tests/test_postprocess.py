@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from consent_tpu.core import postprocess as pp
-from consent_tpu.io import seqs
+from consent_jax.core import postprocess as pp
+from consent_jax.io import seqs
 
 
 def mk(seq_case):

@@ -23,10 +23,10 @@ import subprocess
 import numpy as np
 import pytest
 
-from consent_tpu.core import postprocess, windows as win_mod
-from consent_tpu.io import paf as paf_mod
-from consent_tpu.io import seqs
-from consent_tpu.io.paf import OVERLAP_DTYPE, Pile
+from consent_jax.core import postprocess, windows as win_mod
+from consent_jax.io import paf as paf_mod
+from consent_jax.io import seqs
+from consent_jax.io.paf import OVERLAP_DTYPE, Pile
 
 REF = "/root/reference"
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -513,7 +513,7 @@ def _ref_polish(lib, cased: str, counts: np.ndarray, k: int,
 def _dbg_case(rng, k):
     """One fuzz case: truth-derived k-mer counts + a cased consensus
     with weak (lowercase) head/interior/tail regions and errors."""
-    from consent_tpu.core import dbg as dbg_mod
+    from consent_jax.core import dbg as dbg_mod
 
     L = int(rng.integers(max(3 * k, 40), 300))
     truth = rng.integers(0, 4, L).astype(np.uint8)
@@ -555,8 +555,8 @@ def test_dbg_polish_fuzz(dbg_ref):
     compiled reference's polishCorrection byte for byte, case
     included (budgets are the reference's hardcoded 50/3,
     correctionDBG.cpp:100,102)."""
-    from consent_tpu import native
-    from consent_tpu.core import dbg as dbg_mod
+    from consent_jax import native
+    from consent_jax.core import dbg as dbg_mod
 
     rng = np.random.default_rng(20260821)
     n_native = 0

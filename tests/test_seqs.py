@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from consent_tpu.io import seqs
+from consent_jax.io import seqs
 
 
 def test_encode_decode_roundtrip():

@@ -1,11 +1,11 @@
 import numpy as np
 import pytest
 
-from consent_tpu.config import correct_preset
-from consent_tpu.core.sparse_counts import SparseCounts
-from consent_tpu.io import seqs
-from consent_tpu.ops import kmer as kmer_ops
-from consent_tpu.pipeline import stitch as st
+from consent_jax.config import correct_preset
+from consent_jax.core.sparse_counts import SparseCounts
+from consent_jax.io import seqs
+from consent_jax.ops import kmer as kmer_ops
+from consent_jax.pipeline import stitch as st
 
 
 def cfg_small(**kw):
@@ -117,10 +117,10 @@ def test_stitch_apply_native_matches_python(monkeypatch):
     Python apply across random jobs (arbitration branches included)."""
     import numpy as np
 
-    from consent_tpu import native
-    from consent_tpu.config import correct_preset
-    from consent_tpu.core.sparse_counts import SparseCounts
-    from consent_tpu.pipeline import stitch as st
+    from consent_jax import native
+    from consent_jax.config import correct_preset
+    from consent_jax.core.sparse_counts import SparseCounts
+    from consent_jax.pipeline import stitch as st
 
     if native.get_lib() is None:
         import pytest
@@ -182,7 +182,7 @@ def test_stitch_apply_native_matches_python(monkeypatch):
     st.run_stitch(jobs_a, st.host_batch_align)  # batched native apply
     # disable the native library entirely: the whole-round batched
     # apply AND the per-window native step fall back to pure Python
-    from consent_tpu import native as native_mod
+    from consent_jax import native as native_mod
 
     monkeypatch.setattr(native_mod, "get_lib", lambda: None)
     st.run_stitch(jobs_b, st.host_batch_align)  # pure Python path

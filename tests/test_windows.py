@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from consent_tpu.core import windows as W
-from consent_tpu.io import seqs
-from consent_tpu.io.paf import OVERLAP_DTYPE, Pile
+from consent_jax.core import windows as W
+from consent_jax.io import seqs
+from consent_jax.io.paf import OVERLAP_DTYPE, Pile
 
 
 def make_ov(rows):

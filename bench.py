@@ -14,7 +14,11 @@ ends in block_until_ready (median of 5 runs):
     rounds at the default depth) in windows/s;
   * --e2e: chip_smoke.py's correction phase (main_correct on the
     simulated PB CLR example) with the kernel and with the XLA aligner
-    in turns (kernel, XLA, kernel), each leg from a cleared jit cache.
+    in turns: one untimed warm-up leg of each fills the persistent
+    compile cache, then E2E_PAIRS alternating pairs (XLA, kernel, kernel,
+    XLA, ...), each leg from a cleared in-memory jit cache.  Every leg
+    reports its compile-cache hits and misses and its backend compile
+    seconds, so a warm leg shows that it compiled nothing.
 
 The device (platform, kind, count) and the card's name and power limit
 are printed first; the last line is one JSON object.  Exits non-zero
@@ -24,6 +28,7 @@ Usage: python bench.py [--e2e] [--genome-mb 3.35]
 """
 
 import argparse
+import collections
 import json
 import sys
 import tempfile
@@ -32,6 +37,7 @@ import time
 import chip_smoke
 
 REPS = 5
+E2E_PAIRS = 3
 
 
 def _median_ms(fn, args, reps):
@@ -67,10 +73,52 @@ def consensus_windows_per_s(reps: int) -> dict:
             "runs_ms": runs, "windows_per_s": B / (ms / 1e3)}
 
 
-def e2e_legs(genome_mb: float, order=("kernel", "xla", "kernel")) -> dict:
+class CompileLog:
+    """Counts JAX's persistent compile-cache events and backend compile
+    seconds between take() calls."""
+
+    def __init__(self):
+        import jax
+
+        self.counts = collections.Counter()
+        self.compile_s = 0.0
+        jax.monitoring.register_event_listener(self._event)
+        jax.monitoring.register_event_duration_secs_listener(self._duration)
+
+    def _event(self, event, **_):
+        if event.startswith("/jax/compilation_cache/"):
+            self.counts[event.rsplit("/", 1)[1]] += 1
+
+    def _duration(self, event, duration_secs, **_):
+        if event == "/jax/core/compile/backend_compile_duration":
+            self.counts["backend_compiles"] += 1
+            self.compile_s += duration_secs
+
+    def take(self) -> dict:
+        out = {"cache_hits": self.counts["cache_hits"],
+               "cache_misses": self.counts["cache_misses"],
+               "backend_compiles": self.counts["backend_compiles"],
+               "backend_compile_s": self.compile_s}
+        self.counts.clear()
+        self.compile_s = 0.0
+        return out
+
+
+def e2e_order(pairs: int) -> list:
+    """(aligner, warm-up?) legs: one warm-up of each aligner, then
+    `pairs` alternating pairs, XLA first in every other pair."""
+    legs = [("xla", True), ("kernel", True)]
+    for k in range(pairs):
+        first, second = ("xla", "kernel") if k % 2 == 0 else ("kernel", "xla")
+        legs += [(first, False), (second, False)]
+    return legs
+
+
+def e2e_legs(genome_mb: float, pairs: int) -> dict:
     """The smoke's correction wall with the kernel and with XLA's
-    posterior_summary as the aligner, one leg per entry of `order`."""
+    posterior_summary as the aligner, one leg per entry of e2e_order."""
     import jax
+    import numpy as np
 
     from consent_jax.ops import align as align_ops
 
@@ -80,20 +128,35 @@ def e2e_legs(genome_mb: float, order=("kernel", "xla", "kernel")) -> dict:
         return align_ops.posterior_summary(q, q_len, r, r_len, sc, d0=d0)
 
     impls = {"kernel": kernel_summary, "xla": xla_summary}
+    compiles = CompileLog()
     legs = []
     with tempfile.TemporaryDirectory() as workdir:
         genome, reads, reads_fa = chip_smoke.simulate_dataset(genome_mb,
                                                               workdir)
-        for name in order:
+        for name, warmup in e2e_order(pairs):
             align_ops.summary = impls[name]
             jax.clear_caches()
+            compiles.take()
             res = chip_smoke.phase_correct(genome, reads, reads_fa, workdir)
-            legs.append({"aligner": name, "wall_s": res["wall_s"],
-                         "windows": res["windows"],
-                         "identity": res["corrected_identity"],
-                         "stages_s": res["stages"]["seconds"]})
+            leg = {"aligner": name, "warmup": warmup,
+                   "wall_s": res["wall_s"], "windows": res["windows"],
+                   "identity": res["corrected_identity"],
+                   "compiles": compiles.take(),
+                   "stages_s": res["stages"]["seconds"]}
+            print(f"[e2e] {name}{' (warm-up)' if warmup else ''}: wall "
+                  f"{leg['wall_s']} s, compiles {leg['compiles']}",
+                  flush=True)
+            legs.append(leg)
     align_ops.summary = kernel_summary
-    return {"genome_mb": genome_mb, "legs": legs}
+    walls = {n: [g["wall_s"] for g in legs
+                 if g["aligner"] == n and not g["warmup"]]
+             for n in impls}
+    summary = {n: {"walls_s": w, "median_s": float(np.median(w)),
+                   "min_s": min(w), "max_s": max(w)}
+               for n, w in walls.items()}
+    print(f"[e2e] timed legs: {json.dumps(summary)}", flush=True)
+    return {"genome_mb": genome_mb, "pairs": pairs, "legs": legs,
+            "summary": summary}
 
 
 def main(argv=None) -> int:
@@ -120,7 +183,7 @@ def main(argv=None) -> int:
           f"{report['consensus']['windows_per_s']:.0f} windows/s",
           flush=True)
     if args.e2e:
-        report["e2e"] = e2e_legs(args.genome_mb)
+        report["e2e"] = e2e_legs(args.genome_mb, E2E_PAIRS)
     report["bench_wall_s"] = time.perf_counter() - t0
     print(json.dumps(report))
     return 0

@@ -8,11 +8,14 @@ genome, 10x coverage of 4 kb reads at 10% error, `--type PB` defaults):
   1. devices: the GPU, its name and power limit, the native host library;
   2. kernel: the Hopper aligner compiled at the production widths
      (consensus N=4096 Lq=512 Lr=640 band 128 gap cap 16; stitch
-     N=1024 Lq=Lr=640 exact), its memory analysis, bit-for-bit equality
-     with ops/align.py posterior_summary, the numpy oracle on a few
-     lanes, and the kernel's and XLA's time per call;
+     N=1024 Lq=Lr=640 exact at the stitch scoring, and Lq=Lr=1152, the
+     stitch rows of --windowSize 1000), its memory analysis, bit-for-bit
+     equality with ops/align.py posterior_summary, the numpy oracle on a
+     few lanes, and the kernel's and XLA's time per call;
   3. correction: consent_jax.cli.main_correct with the native
      overlapper; corrected identity vs the simulated truth >= 0.977;
+     then --windowSize 1000 (the stress configuration) on a 0.5 Mb
+     genome under the same gate;
   4. polishing: consent_jax.cli.main_polish of a mutated draft of the
      same genome (10x), then of a 120 kb draft at 80x, whose windows
      reach the deepest fragment-slot bucket (S=152); polished identity
@@ -50,6 +53,8 @@ CONTIG_LEN = 40_000       # draft contig length for polishing
 N_CONTIGS_SCORED = 8
 DEEP_GENOME_MB = 0.12     # deep polishing: 80x on a 120 kb draft
 DEEP_COVERAGE = 80.0
+WIDE_WINDOW = 1000        # the stress configuration's --windowSize
+WIDE_GENOME_MB = 0.5
 
 
 def log(*parts):
@@ -90,13 +95,13 @@ def _kernel_shapes():
     """(name, N, Lq, Lr, scoring, d0 range, error rate, empty share) of
     the engine's consensus and stitch calls at production widths."""
     from consent_jax.ops.align import Scoring
+    from consent_jax.pipeline.device_align import _SCORING as stitch
 
     return [
         ("consensus", 4096, 512, 640,
          Scoring(max_hgap=16, band=128), (-16, 48), 0.10, 0.2),
-        ("stitch", 1024, 640, 640,
-         Scoring(match=2, mismatch=-4, gap_open=4, gap_extend=2),
-         (-64, 64), 0.02, 0.0),
+        ("stitch", 1024, 640, 640, stitch, (-64, 64), 0.02, 0.0),
+        ("stitch-w1000", 1024, 1152, 1152, stitch, (-64, 64), 0.02, 0.0),
     ]
 
 
@@ -468,6 +473,10 @@ def main(argv=None) -> int:
             genome, reads, reads_fa = simulate_dataset(args.genome_mb,
                                                        workdir)
             phase_correct(genome, reads, reads_fa, workdir)
+            wide = simulate_dataset(WIDE_GENOME_MB, workdir, seed=SEED + 3,
+                                    name="wide")
+            phase_correct(wide[0], wide[1], wide[2], workdir,
+                          extra_argv=("--windowSize", str(WIDE_WINDOW)))
             phase_polish(genome, reads_fa, workdir)
             # polishing depth: piles of ~80 reads per window reach the
             # deepest fragment-slot bucket (engine.S_BUCKETS, S=152)

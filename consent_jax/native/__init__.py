@@ -17,6 +17,8 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "host.cpp")
+# host.cpp includes the aligner's cell arithmetic from here
+_HEADERS = (os.path.join(_HERE, os.pardir, "ops", "cuda", "align_core.h"),)
 _LIB = os.path.join(_HERE, "libconsent_host.so")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -47,8 +49,8 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB) or (
-            os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
+        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < max(
+            os.path.getmtime(p) for p in (_SRC, *_HEADERS)
         ):
             if not _build():
                 return None

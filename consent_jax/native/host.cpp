@@ -22,6 +22,8 @@
 #include <unordered_set>
 #include <vector>
 
+#include "../ops/cuda/align_core.h"
+
 extern "C" {
 
 // ---------------------------------------------------------------------------
@@ -1057,9 +1059,9 @@ int64_t assemble_windows(
 // behavior there is unspecified, ours is the deterministic union box
 // on every backend.
 //
-// Per-row int16 state mirrors the XLA recurrence exactly (values
-// never leave int16 range by construction, so int32 intermediates for
-// the gap scans are value-equal).
+// The cell arithmetic is the GPU kernel's (ops/cuda/align_core.h);
+// rows are stored as int16 (values never leave int16 range by
+// construction, so the int32 helpers are value-equal).
 
 extern "C" {
 
@@ -1069,49 +1071,42 @@ static void posterior_spans_one(
     int16_t* hm_all,                       // [lq * lr] scratch
     int16_t* row6,                         // [6 * lr] scratch
     int32_t* out5) {
-    const int16_t NEGV = -16384;           // ops/align.py NEG
+    namespace ca = consent_align;
     if (lq == 0 || lr == 0) {
         out5[0] = 0; out5[1] = -1; out5[2] = 0; out5[3] = -1;
         out5[4] = 0;
         return;
     }
+    const ca::Scoring sc{match, mismatch, open_, ext};
     int16_t* h_prev = row6;
     int16_t* h_cur = row6 + lr;
     int16_t* f_prev = row6 + 2 * lr;
     int16_t* f_cur = row6 + 3 * lr;
-    for (int j = 0; j < lr; j++) { h_prev[j] = 0; f_prev[j] = NEGV; }
-    const int16_t m16 = (int16_t)match, x16 = (int16_t)mismatch;
+    for (int j = 0; j < lr; j++) { h_prev[j] = 0; f_prev[j] = ca::NEG; }
     int32_t opt = 0;
     for (int i = 0; i < lq; i++) {
         int16_t* __restrict__ hm = hm_all + (int64_t)i * lr;
-        int16_t* __restrict__ hp = h_prev;
-        int16_t* __restrict__ fp = f_prev;
+        const int16_t* __restrict__ hp = h_prev;
+        const int16_t* __restrict__ fp = f_prev;
         int16_t* __restrict__ hc = h_cur;
         int16_t* __restrict__ fc = f_cur;
         const uint8_t qc = q[i];
-        // hm[j] = H[i-1][j-1] + sub(i, j); f/ht vector-friendly
-        hm[0] = (qc == r[0]) ? m16 : x16;
-        for (int j = 1; j < lr; j++)
-            hm[j] = (int16_t)(hp[j - 1] + ((qc == r[j]) ? m16 : x16));
-        int16_t row_max = NEGV;
         for (int j = 0; j < lr; j++) {
-            int16_t fv = std::max<int16_t>(
-                (int16_t)(hp[j] - open_), (int16_t)(fp[j] - ext));
-            fc[j] = fv;
-            hc[j] = std::max<int16_t>(std::max<int16_t>(hm[j], fv), 0);
-            row_max = std::max(row_max, hm[j]);
+            int32_t hmv, fv;
+            const int32_t ht = ca::fwd_cell(
+                j ? hp[j - 1] : 0, hp[j], fp[j],
+                ca::sub_score(qc, r[j], true, sc), sc, &hmv, &fv);
+            hm[j] = (int16_t)hmv;
+            fc[j] = (int16_t)fv;
+            hc[j] = (int16_t)ht;
+            opt = ca::imax(opt, hmv);
         }
-        if (row_max > opt) opt = row_max;
-        // E(j) = max_{k<j}(ht(k) - (j-1-k)*ext) - open, via the decayed
-        // running max dm(j+1) = max(ht(j), dm(j) - ext).  Value-equal
-        // to the XLA prefix-max form: the NEG-seed branch differs by
-        // ext but stays < 0 while ht >= 0 always wins the max.
-        int16_t dm = NEGV;
+        // horizontal gap: running max of ht(k) + k*ext over k < j
+        int32_t pe = ca::NEG;
         for (int j = 0; j < lr; j++) {
-            int16_t ht = hc[j];
-            int16_t e = (int16_t)(dm - open_);
-            if (e > ht) hc[j] = e;
-            dm = std::max<int16_t>((int16_t)(dm - ext), ht);
+            const int32_t ht = hc[j];
+            hc[j] = (int16_t)ca::fwd_finish(ht, pe, j, sc);
+            pe = ca::imax(pe, ht + j * ext);
         }
         std::swap(h_prev, h_cur);
         std::swap(f_prev, f_cur);
@@ -1126,61 +1121,35 @@ static void posterior_spans_one(
     int16_t* bh_cur = row6 + lr;
     int16_t* bf_prev = row6 + 2 * lr;
     int16_t* bf_cur = row6 + 3 * lr;
-    int16_t* bt = row6 + 4 * lr;
-    for (int j = 0; j < lr; j++) { bh_prev[j] = 0; bf_prev[j] = NEGV; }
-    const int16_t opt16 = (int16_t)opt;
+    for (int j = 0; j < lr; j++) { bh_prev[j] = 0; bf_prev[j] = ca::NEG; }
     int qb = lq, qe = -1, rb = lr, re = -1;
-    const int16_t ma16 = (int16_t)match, mi16 = (int16_t)mismatch;
     for (int i = lq - 1; i >= 0; i--) {
         const int16_t* __restrict__ hm = hm_all + (int64_t)i * lr;
-        int16_t* __restrict__ bhp = bh_prev;
-        int16_t* __restrict__ bfp = bf_prev;
+        const int16_t* __restrict__ bhp = bh_prev;
+        const int16_t* __restrict__ bfp = bf_prev;
         int16_t* __restrict__ bhc = bh_cur;
         int16_t* __restrict__ bfc = bf_cur;
-        int16_t* __restrict__ btr = bt;
         const uint8_t qc = q[i];
-        int any = 0;
-        for (int j = 0; j < lr - 1; j++)
-            any |= (hm[j] > NEGV / 2) &&
-                   ((int16_t)(hm[j] + bhp[j + 1]) == opt16);
-        any |= (hm[lr - 1] > NEGV / 2) && (hm[lr - 1] == opt16);
-        if (any) {
-            for (int j = 0; j < lr; j++) {
-                int16_t bhd = (j + 1 < lr) ? bhp[j + 1] : (int16_t)0;
-                if (hm[j] > NEGV / 2 &&
-                    (int16_t)(hm[j] + bhd) == opt16) {
-                    if (i < qb) qb = i;
-                    if (i > qe) qe = i;
-                    if (j < rb) rb = j;
-                    if (j > re) re = j;
-                }
+        for (int j = 0; j < lr; j++) {
+            const int32_t bd = j + 1 < lr ? bhp[j + 1] : 0;
+            if (ca::on_path(hm[j], bd, opt)) {
+                if (i < qb) qb = i;
+                if (i > qe) qe = i;
+                if (j < rb) rb = j;
+                if (j > re) re = j;
             }
+            int32_t bf;
+            bhc[j] = (int16_t)ca::bwd_cell(
+                bd, bhp[j], bfp[j], ca::sub_score(qc, r[j], true, sc), sc,
+                &bf);
+            bfc[j] = (int16_t)bf;
         }
-        for (int j = 0; j < lr - 1; j++) {
-            int16_t bm = (int16_t)(((qc == r[j]) ? ma16 : mi16)
-                                   + bhp[j + 1]);
-            int16_t bfv = std::max<int16_t>(
-                (int16_t)(bhp[j] - open_), (int16_t)(bfp[j] - ext));
-            bfc[j] = bfv;
-            btr[j] = std::max<int16_t>(std::max<int16_t>(bm, bfv), 0);
-        }
-        {
-            int j = lr - 1;
-            int16_t bm = (qc == r[j]) ? ma16 : mi16;
-            int16_t bfv = std::max<int16_t>(
-                (int16_t)(bhp[j] - open_), (int16_t)(bfp[j] - ext));
-            bfc[j] = bfv;
-            btr[j] = std::max<int16_t>(std::max<int16_t>(bm, bfv), 0);
-        }
-        // bE(j) = max_{k>j}(bt(k) - (k-1-j)*ext) - open (decayed
-        // suffix max; NEG-seed discrepancy vs the XLA form is < 0 and
-        // never beats bt >= 0, as in the forward scan)
-        int16_t dm = NEGV;
+        // horizontal gap: running max of bt(k) - k*ext over k > j
+        int32_t se = ca::NEG;
         for (int j = lr - 1; j >= 0; j--) {
-            int16_t btv = btr[j];
-            int16_t be = (int16_t)(dm - open_);
-            bhc[j] = be > btv ? be : btv;
-            dm = std::max<int16_t>((int16_t)(dm - ext), btv);
+            const int32_t bt = bhc[j];
+            bhc[j] = (int16_t)ca::bwd_finish(bt, se, j, sc);
+            se = ca::imax(se, bt - j * ext);
         }
         std::swap(bh_prev, bh_cur);
         std::swap(bf_prev, bf_cur);

@@ -2,8 +2,9 @@
 
 `posterior_summary` has the contract of ops/align.py posterior_summary
 (bit for bit, all six fields) and runs ops/cuda/align_kernel.cu, one
-warp per alignment lane, with the DP rows in registers and only int16
-hm rows in band coordinates staged through device memory.
+warp per alignment lane, with the DP rows in registers (in shared
+memory for a full DP wider than 1024 columns) and only int16 hm rows in
+band coordinates staged through device memory.
 
 The kernel library is compiled from the sources beside this module with
 nvcc for sm_90a at first use, or ahead of time with
@@ -41,7 +42,6 @@ _SOURCES = {
     "cpu": ("align_host.cc", "align_core.h"),
 }
 _FFI_PLATFORM = {"gpu": "CUDA", "cpu": "cpu"}
-_SLOTS_PER_THREAD_MAX = 32   # slot count S = 32 * P
 
 
 def _nvcc() -> str:
@@ -134,17 +134,26 @@ def gap_window(max_hgap: int, Lr: int, S: int) -> int:
     return 0 if w >= S else w
 
 
-def _check_shape(platform: str, Lq: int, S: int, sc: Scoring, win: int):
+def check(Lq: int, Lr: int, sc: Scoring, platform: str | None = None
+          ) -> None:
+    """Raise ValueError unless a kernel variant serves (Lq, Lr, sc) on
+    `platform` (default: JAX's first device).  Callers with fixed
+    shapes (the consensus engine, the stitch aligner) ask once at set-up
+    so that an unsupported knob fails there, not inside a jitted call."""
+    platform = platform or jax.devices()[0].platform
+    S = slot_count(Lr, sc.band)
+    win = gap_window(sc.max_hgap, Lr, S)
     if Lq >= 2 ** 15:
         raise ValueError(f"query width {Lq} exceeds the kernel's int16 rows")
-    if S % 32 or S // 32 > _SLOTS_PER_THREAD_MAX:
+    if S % 32:
         raise ValueError(f"no aligner kernel for {S} slots per row")
     if platform == "gpu" and not load("gpu").consent_align_supported(
         int(sc.band > 0), S // 32, win
     ):
         raise ValueError(
             f"no aligner kernel compiled for band={sc.band}, {S} slots, "
-            f"gap window {win} (ops/cuda/align_kernel.cu pick())"
+            f"gap window {win} (ops/cuda/align_kernel.cu pick()): the "
+            f"band must be 128 or 256 and the gap cap at most 32"
         )
 
 
@@ -164,7 +173,7 @@ def posterior_summary(
     Lr = r.shape[1]
     S = slot_count(Lr, sc.band)
     win = gap_window(sc.max_hgap, Lr, S)
-    _check_shape(platform, Lq, S, sc, win)
+    check(Lq, Lr, sc, platform)
     if d0 is None:
         d0 = jnp.zeros((N,), jnp.int32)
     i32 = jax.ShapeDtypeStruct((N, Lr), jnp.int32)

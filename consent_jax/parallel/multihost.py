@@ -86,19 +86,13 @@ def merge_shards(base: str, process_count: int, out_path: str) -> None:
 
 
 def init_distributed() -> tuple:
-    """(process_index, process_count): from jax.distributed when the
-    environment describes a cluster (JAX_COORDINATOR_ADDRESS as
-    host:port, JAX_NUM_PROCESSES, JAX_PROCESS_ID), else (0, 1).  A
-    failed initialization raises."""
-    addr = os.environ.get("JAX_COORDINATOR_ADDRESS")
-    if not addr:
-        return 0, 1
-    import jax
+    """(process_index, process_count) — from jax.distributed when the
+    standard cluster env vars are present, else (0, 1).  A failed
+    initialization raises: a cluster that cannot be joined is never
+    run as a single host."""
+    if "JAX_PROCESS_COUNT" in os.environ or "COORDINATOR_ADDRESS" in os.environ:
+        import jax
 
-    if not jax.distributed.is_initialized():
-        jax.distributed.initialize(
-            coordinator_address=addr,
-            num_processes=int(os.environ["JAX_NUM_PROCESSES"]),
-            process_id=int(os.environ["JAX_PROCESS_ID"]),
-        )
-    return jax.process_index(), jax.process_count()
+        jax.distributed.initialize()
+        return jax.process_index(), jax.process_count()
+    return 0, 1

@@ -121,6 +121,10 @@ class FixedAligner:
                 cfg.window_size + cfg.frag_slack),
             128,
         )
+        if align_ops.backend() == "cuda":
+            from consent_jax.ops import gpu_align
+
+            gpu_align.check(self.fixed_len, self.fixed_len, _SCORING)
         self.mesh = mesh
 
     def _native(self, qs, rs):

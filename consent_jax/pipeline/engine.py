@@ -33,7 +33,7 @@ from consent_jax.io import seqs
 from consent_jax.io.paf import Pile
 from consent_jax.ops import consensus as cons_ops
 from consent_jax.ops import kmer as kmer_ops
-from consent_jax.ops.align import Scoring
+from consent_jax.ops.align import Scoring, backend as align_backend
 from consent_jax.pipeline import stitch as stitch_mod
 from consent_jax.utils.observe import GLOBAL_STATS as STATS
 
@@ -83,6 +83,10 @@ class ConsensusEngine:
         self.s_cap = max(S_BUCKETS[-1], cfg.max_msa + 1)
         self.Lf = self._round128(cfg.window_size)
         self.Lt = self._round128(cfg.window_size + cfg.frag_slack)
+        if align_backend() == "cuda":
+            from consent_jax.ops import gpu_align
+
+            gpu_align.check(self.Lf, self.Lt, self.scoring)
         # device parallelism: window batches split over a 1-D `data`
         # mesh of the local devices via shard_map (the device analogue
         # of the reference's CTPL fan-out, CONSENT-correction.cpp:77).

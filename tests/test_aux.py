@@ -90,30 +90,33 @@ def test_chunk_store_gap_stops_assembly(tmp_path):
 
 
 def test_init_distributed_without_cluster_env(monkeypatch):
-    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
+    monkeypatch.delenv("JAX_PROCESS_COUNT", raising=False)
     assert multihost.init_distributed() == (0, 1)
 
 
-def test_init_distributed_raises_on_failure(monkeypatch):
+@pytest.mark.parametrize("var,value", [
+    ("COORDINATOR_ADDRESS", "localhost:1"),
+    ("JAX_PROCESS_COUNT", "2"),
+])
+def test_init_distributed_raises_on_failure(monkeypatch, var, value):
     """A cluster that cannot be joined is an error, not a silent
     single-host run."""
     import jax
 
     calls = []
 
-    def fail(**kw):
-        calls.append(kw)
+    def fail(*args, **kw):
+        calls.append((args, kw))
         raise RuntimeError("coordinator unreachable")
 
-    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1")
-    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
-    monkeypatch.setenv("JAX_PROCESS_ID", "1")
-    monkeypatch.setattr(jax.distributed, "is_initialized", lambda: False)
+    monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
+    monkeypatch.delenv("JAX_PROCESS_COUNT", raising=False)
+    monkeypatch.setenv(var, value)
     monkeypatch.setattr(jax.distributed, "initialize", fail)
     with pytest.raises(RuntimeError, match="unreachable"):
         multihost.init_distributed()
-    assert calls == [{"coordinator_address": "localhost:1",
-                      "num_processes": 2, "process_id": 1}]
+    assert calls == [((), {})]
 
 
 _CACHE_PROBE = """

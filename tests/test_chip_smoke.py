@@ -8,6 +8,7 @@ import os
 import pytest
 
 from consent_jax.ops.align import Scoring
+from consent_jax.pipeline.device_align import _SCORING as STITCH
 
 _PATH = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
 _WINDOWS = ["--windowSize", "200", "--windowOverlap", "20"]
@@ -26,13 +27,37 @@ def test_refuses_cpu(smoke, capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
-def test_bench_refuses_cpu(capsys):
+@pytest.fixture(scope="module")
+def bench():
     spec = importlib.util.spec_from_file_location(
         "bench", os.path.join(os.path.dirname(_PATH), "bench.py"))
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bench_refuses_cpu(bench, capsys):
     assert bench.main([]) == 2
     assert capsys.readouterr().out == ""
+
+
+def test_bench_e2e_order_alternates(bench):
+    legs = bench.e2e_order(3)
+    assert legs[:2] == [("xla", True), ("kernel", True)]
+    timed = [name for name, warm in legs[2:] if not warm]
+    assert timed == ["xla", "kernel", "kernel", "xla", "xla", "kernel"]
+
+
+def test_bench_compile_log_counts_compiles(bench):
+    import jax
+    import jax.numpy as jnp
+
+    log = bench.CompileLog()
+    log.take()
+    jax.jit(lambda x: x * 3 + 1)(jnp.arange(5)).block_until_ready()
+    got = log.take()
+    assert got["backend_compiles"] >= 1 and got["backend_compile_s"] > 0
+    assert log.take()["backend_compiles"] == 0
 
 
 def test_devices_phase(smoke):
@@ -46,10 +71,25 @@ def test_kernel_phase(smoke):
     shapes = [
         ("consensus", 12, 128, 160, Scoring(max_hgap=16, band=128),
          (-16, 48), 0.10, 0.2),
-        ("stitch", 6, 128, 128, Scoring(), (-20, 20), 0.02, 0.0),
+        ("stitch", 6, 128, 128, STITCH, (-20, 20), 0.02, 0.0),
     ]
     out = smoke.phase_kernel(shapes, reps=1, oracle_lanes=1)
     assert set(out) == {"consensus", "stitch"}
+
+
+def test_kernel_shapes_are_the_production_calls(smoke):
+    """The smoke's kernel shapes carry the scorings and widths the
+    engine and the stitcher run with."""
+    from consent_jax.config import correct_preset
+    from consent_jax.pipeline.device_align import FixedAligner
+    from consent_jax.pipeline.engine import ConsensusEngine
+
+    shapes = {s[0]: s for s in smoke._kernel_shapes()}
+    eng = ConsensusEngine(correct_preset(n_devices=1))
+    assert shapes["consensus"][2:5] == (eng.Lf, eng.Lt, eng.scoring)
+    for name, window in (("stitch", 500), ("stitch-w1000", 1000)):
+        L = FixedAligner(correct_preset(window_size=window)).fixed_len
+        assert shapes[name][2:5] == (L, L, STITCH)
 
 
 def test_correct_and_polish_phases(smoke, tmp_path):

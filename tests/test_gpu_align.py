@@ -16,6 +16,10 @@ import jax.numpy as jnp
 
 from consent_jax.ops import align as align_ops
 from consent_jax.ops import gpu_align
+from consent_jax.pipeline import device_align
+
+# the production stitch scoring (pipeline/stitch.py STITCH_SCORING)
+STITCH = device_align._SCORING
 
 
 def pad_to(x, L):
@@ -79,11 +83,26 @@ def near_diagonal(rng, n_lanes, Lq, Lr, d0_range):
     return qs, rs, d0s
 
 
+@pytest.mark.parametrize("sc", [align_ops.Scoring(), STITCH],
+                         ids=["default", "stitch"])
 @pytest.mark.parametrize("seed", range(6))
-def test_full_dp_matches_xla_summary(seed):
+def test_full_dp_matches_xla_summary(seed, sc):
     rng = np.random.default_rng(seed)
     pairs = [random_pair(rng, n=int(rng.integers(20, 100))) for _ in range(5)]
-    a, b = both([p[0] for p in pairs], [p[1] for p in pairs], 160, 128)
+    a, b = both([p[0] for p in pairs], [p[1] for p in pairs], 160, 128, sc)
+    assert_summaries_equal(a, b)
+
+
+@pytest.mark.parametrize("max_hgap", [0, 16])
+def test_full_dp_wider_than_register_rows(max_hgap):
+    """A stitch at --windowSize 1000 pins its rows to 1152 slots, past
+    the register variants (1024): the wrapper must accept the width."""
+    rng = np.random.default_rng(1152 + max_hgap)
+    pairs = [random_pair(rng, n=int(rng.integers(1000, 1152)), mut=0.1)
+             for _ in range(2)]
+    sc = STITCH._replace(max_hgap=max_hgap)
+    a, b = both([p[0][:200] for p in pairs], [p[1] for p in pairs],
+                256, 1152, sc)
     assert_summaries_equal(a, b)
 
 
@@ -243,6 +262,36 @@ def test_slot_count():
     assert gpu_align.slot_count(640, 128) == 128
 
 
+@pytest.mark.parametrize("Lr", [640, 1152, 4096])
+def test_check_accepts_every_stitch_width(Lr):
+    gpu_align.check(Lr, Lr, STITCH, platform="cpu")
+
+
+def test_check_refuses_wide_queries():
+    with pytest.raises(ValueError, match="int16"):
+        gpu_align.check(2 ** 15, 640, STITCH, platform="cpu")
+
+
+def test_aligners_check_shapes_at_set_up(monkeypatch):
+    """On the kernel backend the consensus engine and the stitch aligner
+    ask gpu_align.check() for their pinned shapes when they are built."""
+    from consent_jax.config import correct_preset
+    from consent_jax.pipeline import engine
+
+    calls = []
+    monkeypatch.setattr(gpu_align, "check",
+                        lambda Lq, Lr, sc: calls.append((Lq, Lr, sc)))
+    monkeypatch.setattr(engine, "align_backend", lambda: "cuda")
+    monkeypatch.setattr(align_ops, "backend", lambda: "cuda")
+    cfg = correct_preset(window_size=1000, n_devices=1)
+    eng = engine.ConsensusEngine(cfg)
+    device_align.FixedAligner(cfg)
+    assert calls == [
+        (1024, 1152, eng.scoring),
+        (1152, 1152, STITCH),
+    ]
+
+
 def test_unsupported_band_raises():
     q, ql, r, rl = lanes([np.zeros(4, np.uint8)], [np.zeros(4, np.uint8)],
                          8, 8)
@@ -291,6 +340,8 @@ def _device_case(seed, N, Lq, Lr, d0_spread):
     (128, 16, 640), (0, 0, 640),            # the production variants
     (128, 0, 640), (128, 8, 640), (128, 32, 640), (256, 16, 640),
     (0, 16, 640), (0, 0, 128), (0, 0, 1000),
+    # past the register rows: the shared-memory kernel
+    (0, 0, 1152), (0, 8, 1280), (0, 16, 1152), (0, 32, 2048),
 ])
 def test_compiled_kernel_matches_xla_on_card(band, max_hgap, Lr):
     q, ql, r, rl, d0 = _device_case(band + Lr, 256, 512, Lr, 16)
@@ -299,4 +350,21 @@ def test_compiled_kernel_matches_xla_on_card(band, max_hgap, Lr):
     assert_summaries_equal(
         align_ops.posterior_summary(q, ql, r, rl, sc, d0=d0),
         gpu_align.posterior_summary(q, ql, r, rl, sc, d0=d0),
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [640, 1152])
+def test_compiled_kernel_at_stitch_scoring_on_card(L):
+    """The production stitch scoring on near-identical pairs (long
+    optimal paths), at window 500 and window 1000 widths."""
+    from consent_jax.testing import simulate
+
+    q, ql, r, rl, d0 = simulate.alignment_lanes(
+        256, L, L, d0_range=(-64, 64), error_rate=0.02, seed=L)
+    q, ql, r, rl = (jnp.asarray(x) for x in (q, ql, r, rl))
+    assert align_ops.backend() == "cuda"
+    assert_summaries_equal(
+        align_ops.posterior_summary(q, ql, r, rl, STITCH),
+        gpu_align.posterior_summary(q, ql, r, rl, STITCH),
     )

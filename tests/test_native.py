@@ -219,3 +219,30 @@ def test_host_post_batch_native_matches_window_calls(seed=11):
             assert np.array_equal(g_solid, w_solid), f"win {i} solid"
             assert np.array_equal(g_sparse.kmers, w_sparse.kmers)
             assert np.array_equal(g_sparse.counts, w_sparse.counts)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_posterior_spans_native_matches_device_aligner(seed):
+    """The host stitch aligner (host.cpp posterior_spans_one, on the
+    kernel's cell arithmetic) gives the device aligner's spans."""
+    from consent_jax.pipeline import device_align
+    from consent_jax.pipeline.stitch import STITCH_SCORING
+
+    rng = np.random.default_rng(seed)
+    qs, rs = [], []
+    for _ in range(6):
+        ref = rng.integers(0, 4, int(rng.integers(40, 300))).astype(np.uint8)
+        lo = int(rng.integers(0, len(ref) // 3))
+        q = ref[lo : lo + int(rng.integers(20, len(ref) - lo + 1))].copy()
+        pos = rng.integers(0, len(q), len(q) // 10)
+        q[pos] = (q[pos] + 1) % 4
+        qs.append(np.concatenate([rng.integers(0, 4, 7).astype(np.uint8), q]))
+        rs.append(ref)
+    qs.append(np.array([1, 2], np.uint8))     # no positive alignment
+    rs.append(np.array([0, 0, 3], np.uint8))
+    got = native.posterior_spans_native(qs, rs, **STITCH_SCORING)
+    assert got is not None
+    want = device_align.device_batch_align(qs, rs)
+    for k, s in enumerate(want):
+        assert tuple(got[k]) == (s.q_begin, s.q_end, s.r_begin, s.r_end,
+                                 int(s.valid)), k
